@@ -1,4 +1,4 @@
-"""dj_brdf_tpu — a TPU-native differentiable BRDF renderer/fitter.
+"""dj_brdf_tpu — a differentiable BRDF renderer/fitter in JAX.
 
 A from-scratch JAX/XLA/Pallas framework with the capabilities of the
 dj_brdf C++ toolkit (reference: jdupuy/dj_brdf, ``dj_brdf.h``): Smith

@@ -31,9 +31,11 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     import numpy as np
+    from dj_brdf_tpu.config import setup_compile_cache
     from dj_brdf_tpu.fit.batch import tabulate_merl_batch
     from dj_brdf_tpu.io.merl_io import load_merl
 
+    setup_compile_cache()
     tables = np.stack([load_merl(path) for path in args.files])
     mesh = None
     if args.mesh:

@@ -1,5 +1,5 @@
 """Render a directly lit sphere with any model in the framework — the
-TPU-native replacement for the reference's Mitsuba matpreview scenes
+JAX replacement for the reference's Mitsuba matpreview scenes
 (mitsuba/*.cpp expose the same six material families as BSDF plugins).
 
 Usage examples:
@@ -124,6 +124,7 @@ def main(argv=None) -> int:
     import jax
     import jax.numpy as jnp
     from dj_brdf_tpu import fresnel
+    from dj_brdf_tpu.config import setup_compile_cache
     from dj_brdf_tpu.microfacet import brdf as mf
     from dj_brdf_tpu.microfacet.ndf import GGX, Beckmann
     from dj_brdf_tpu.microfacet.params import MicrofacetParams
@@ -134,6 +135,7 @@ def main(argv=None) -> int:
                                               MeasuredMaterial,
                                               MicrofacetMaterial)
 
+    setup_compile_cache()
     a2 = args.alpha2 if args.alpha2 is not None else args.alpha1
     params = MicrofacetParams.elliptic(args.alpha1, a2, args.alpha_angle)
     fres = fresnel.Schlick(f0=jnp.asarray(args.f0, jnp.float32))

@@ -1,6 +1,6 @@
 """Vector math on ``(..., 3)`` arrays.
 
-TPU-native counterpart of the reference's scalar ``vec3`` utilities
+JAX counterpart of the reference's scalar ``vec3`` utilities
 (dj_brdf.h:570-766): everything here is branchless, broadcasts over
 leading batch dimensions, and is differentiable. There is no vector
 class — a direction is just the last axis of a jnp array, so ``vmap``

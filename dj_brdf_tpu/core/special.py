@@ -5,7 +5,7 @@ Abramowitz & Stegun 7.1.26 (dj_brdf.h:667-688, after John D. Cook) and
 erfinv via Mike Giles' single-precision polynomial (dj_brdf.h:691-721).
 Both are reimplemented here branchlessly so that oracle comparisons
 against the C++ match to float rounding, and both fuse cleanly into
-surrounding TPU kernels (pure polynomial + exp/log, no table lookups).
+surrounding kernels (pure polynomial + exp/log, no table lookups).
 
 ``jax.scipy.special.erf``/``erfinv`` are exposed as ``erf_exact`` /
 ``erfinv_exact`` for users who prefer higher accuracy over bit parity.

@@ -1,6 +1,6 @@
 """Piecewise-linear table lookup ("spline" in the reference).
 
-TPU-native version of the reference's spline namespace
+JAX version of the reference's spline namespace
 (dj_brdf.h:1179-1249): a table of N points is sampled at parameter
 ``u`` with index ``u * (N-1)``; the two neighbours are wrapped by
 either edge-clamp or periodic repeat and lerped. Implemented as

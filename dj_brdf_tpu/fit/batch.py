@@ -1,8 +1,8 @@
 """Batch fitting of many materials at once.
 
 The reference loops over MERL files one at a time
-(examples/merl_params.cpp:53-68); on TPU the whole 100-material MERL
-set fits in HBM (100 x 17.5 MB) and fits *in parallel*: material
+(examples/merl_params.cpp:53-68); here the whole 100-material MERL
+set sits in device memory (100 x 17.5 MB) and fits *in parallel*: material
 tables stack on a leading axis, the LSQ fit vmaps over it, and the
 material axis shards across the mesh — the data-parallel "train on
 all materials" path of BASELINE.json config 4.
@@ -45,7 +45,7 @@ def merl_targets(tables, i, o):
 def tabulate_merl_batch(tables, res: int = 90, shadow: bool = True,
                         mesh=None):
     """Run the full tabulation pipeline (dj_brdf.h:2215-2236) on a
-    *stack* of MERL tables in one vmapped device program — the TPU
+    *stack* of MERL tables in one vmapped device program — the device
     form of the reference's per-file loop in examples/merl_params.cpp:
     53-68. Returns ``(Tabular stack, fresnel points stack (M, res, 3),
     beckmann alphas (M,), ggx alphas (M,))``.
@@ -111,64 +111,22 @@ def tabulate_merl_batch(tables, res: int = 90, shadow: bool = True,
     return dists, fres_pts, ab, ag
 
 
-def fit_materials(targets, i, o, steps: int = 300, lr: float = 5e-2,
-                  mesh=None, dist=GGX(), fused: str = "auto"):
-    """Fit per-material (MicrofacetParams, Schlick) to ``targets``
-    (M, N, 3). With a mesh, the material axis shards across devices
-    (fully independent fits — zero communication; the mesh turns 100
-    sequential CPU fits into M/D per device).
+def make_batched_value_and_grad(targets, i, o, dist=GGX(),
+                                route: str = "xla"):
+    """The per-material fit step of :func:`fit_materials`: returns
+    ``(value_and_grad, data)`` with ``value_and_grad(raw, *data) ->
+    (per-material losses (M,), grad of their mean w.r.t. raw)``.
 
-    ``fused="auto"`` routes GGX-family and Beckmann fits through the
-    hand-written adjoint (the batched fused Pallas kernel on an
-    unsharded TPU — direction blocks fetched once and reused across
-    materials — or the same adjoint in XLA elsewhere); "never" keeps
-    the layered autodiff path."""
+    ``route`` (``fit.lsq.adjoint_route``): "kernel" runs the hand
+    adjoint as the Pallas kernel, which reads each direction block once
+    for all materials; "xla" as the vmapped plain-XLA adjoint;
+    "autodiff" as layered autodiff of ``fit.lsq.make_loss``."""
     from dj_brdf_tpu.ops import soa
-
-    if fused not in ("auto", "never"):
-        raise ValueError(f"fused must be 'auto' or 'never', got {fused!r}")
+    from dj_brdf_tpu.ops.fused_fit import lsq_value_and_grad_batched
 
     m = targets.shape[0]
-    raw0 = jax.vmap(lambda _: lsq.raw_init())(jnp.arange(m))
-    opt = optax.adam(lr)
-
-    family = lsq.fused_eligible(dist)
-    use_fused = fused == "auto" and family is not None
-    use_pallas = (use_fused and mesh is None
-                  and jax.default_backend() == "tpu")
-
-    if use_fused:
-        fwdbwd = (soa.beckmann_lsq_fwdbwd_soa if family == "beck"
-                  else soa.ggx_lsq_fwdbwd_soa)
-        comp = soa.split_dirs(i, o)
-        tg3 = (targets[..., 0], targets[..., 1], targets[..., 2])  # (M, N)
-        n = comp[0].size
-        if use_pallas:
-            from dj_brdf_tpu.ops.fused_fit import pad_to_block
-            comp, tg3, n = pad_to_block(comp, tg3)
-        data = (*comp, *tg3)
-
-        def vg(raw, *data):
-            """Gradient of the mean-over-materials loss + per-material
-            losses (matches the layered loss_batched exactly)."""
-            pvecs, vjp = jax.vjp(jax.vmap(soa.raw_to_pvec), raw)
-            if use_pallas:
-                from dj_brdf_tpu.ops.fused_fit import \
-                    ggx_lsq_value_and_grad_batched
-                per_mat, gp = ggx_lsq_value_and_grad_batched(
-                    pvecs, *data, n_valid=n, mean_over_materials=True,
-                    family=family)
-            else:
-                sums, gsums = jax.vmap(
-                    lambda pv, tr, tg, tb: fwdbwd(
-                        pv, *data[:6], tr, tg, tb))(pvecs, *data[6:])
-                per_mat = sums / n
-                gp = gsums / (n * m)
-            (graw,) = vjp(gp)
-            return per_mat, graw
-    else:
+    if route == "autodiff":
         loss_one = lsq.make_loss(dist)
-        data = (i, o, targets)
 
         def vg(raw, i, o, targets):
             def loss_batched(raw):
@@ -179,6 +137,47 @@ def fit_materials(targets, i, o, steps: int = 300, lr: float = 5e-2,
             (_, per_mat), grads = jax.value_and_grad(
                 loss_batched, has_aux=True)(raw)
             return per_mat, grads
+
+        return vg, (i, o, targets)
+
+    family = lsq.fused_eligible(dist)
+    fwdbwd = (soa.beckmann_lsq_fwdbwd_soa if family == "beck"
+              else soa.ggx_lsq_fwdbwd_soa)
+    comp = soa.split_dirs(i, o)
+    tg3 = (targets[..., 0], targets[..., 1], targets[..., 2])  # (M, N)
+    n = comp[0].size
+
+    def vg(raw, *data):
+        pvecs, vjp = jax.vjp(jax.vmap(soa.raw_to_pvec), raw)
+        if route == "kernel":
+            sums, gsums = lsq_value_and_grad_batched(pvecs, *data,
+                                                     family=family)
+        else:
+            sums, gsums = jax.vmap(
+                lambda pv, tr, tg, tb: fwdbwd(
+                    pv, *data[:6], tr, tg, tb))(pvecs, *data[6:])
+        (graw,) = vjp(gsums / (n * m))
+        return sums / n, graw
+
+    return vg, (*comp, *tg3)
+
+
+def fit_materials(targets, i, o, steps: int = 300, lr: float = 5e-2,
+                  mesh=None, dist=GGX(), fused: str = "auto"):
+    """Fit per-material (MicrofacetParams, Schlick) to ``targets``
+    (M, N, 3). With a mesh, the material axis shards across devices
+    (fully independent fits — zero communication; the mesh turns 100
+    sequential CPU fits into M/D per device).
+
+    ``fused="auto"`` routes GGX-family and Beckmann fits through the
+    hand-written adjoint (``fit.lsq.adjoint_route``: on an unsharded
+    GPU the Pallas kernel, plain XLA elsewhere or under a mesh); "never"
+    keeps the layered autodiff path."""
+    route = lsq.adjoint_route(dist, fused=fused, sharded=mesh is not None)
+    m = targets.shape[0]
+    raw0 = jax.vmap(lambda _: lsq.raw_init())(jnp.arange(m))
+    opt = optax.adam(lr)
+    vg, data = make_batched_value_and_grad(targets, i, o, dist, route)
 
     @jax.jit
     def run(raw, *data):
@@ -196,15 +195,11 @@ def fit_materials(targets, i, o, steps: int = 300, lr: float = 5e-2,
         return raw, per_mat[-1]
 
     if mesh is not None:
+        # material-axis leaves shard; the shared direction set
+        # replicates
         mat_sharding = NamedSharding(mesh, P(DATA_AXIS))
-        if use_fused:
-            # material-axis leaves shard; the shared direction set
-            # replicates
-            data = tuple(
-                jax.device_put(a, mat_sharding) if a.ndim > 1 else a
-                for a in data)
-        else:
-            data = (i, o, jax.device_put(targets, mat_sharding))
+        data = tuple(a if a is i or a is o or a.ndim == 1
+                     else jax.device_put(a, mat_sharding) for a in data)
         raw0 = jax.device_put(raw0, mat_sharding)
 
     raw, final_losses = run(raw0, *data)

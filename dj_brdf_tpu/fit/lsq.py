@@ -71,12 +71,11 @@ def make_loss(dist, shadow: bool = True,
 
 
 def fused_eligible(dist, shadow: bool = True):
-    """The fused-kernel family ("ggx" or "beck") when the fit shape
-    matches a hand-adjoint kernel (ops/fused_fit.py): GGX-family or
+    """The hand-adjoint family ("ggx" or "beck") when the fit shape
+    matches one (ops/soa.py ``*_lsq_fwdbwd_soa``): GGX-family or
     Beckmann distribution, height-correlated Smith shadowing, the
     standard RawFit parameterization — the reference's co-equal fit
-    pair (dj_brdf.h:3133-3184). None otherwise (truthiness preserved
-    for old boolean callers)."""
+    pair (dj_brdf.h:3133-3184). None otherwise."""
     from dj_brdf_tpu.microfacet.ndf import GGX, Beckmann
     if not shadow:
         return None
@@ -87,52 +86,63 @@ def fused_eligible(dist, shadow: bool = True):
     return None
 
 
-def make_fused_value_and_grad(i, o, target, use_pallas: bool | None = None,
-                              interpret: bool = False,
-                              family: str = "ggx"):
-    """Build the GGX+Schlick fit step through the hand-written adjoint
-    — the product fitting step runs at the benched fused-kernel rate
-    instead of AD-graph speed (VERDICT r2 weak #1; hot chain
-    dj_brdf.h:1529-1547).
+def adjoint_route(dist, shadow: bool = True, fused: str = "auto",
+                  sharded: bool = False, platform: str | None = None):
+    """Where a fit's loss and gradient run — the one routing rule for
+    :func:`fit_lsq`, ``fit.batch.fit_materials`` and the benchmark.
 
-    On TPU the adjoint runs as the fused Pallas kernel
-    (`ops/fused_fit.py`, residuals never leave VMEM); elsewhere — and
-    under data shardings, where XLA inserts the gradient psum — as the
-    same analytic adjoint in plain XLA (`soa.ggx_lsq_fwdbwd_soa`).
-    The 8-scalar chain through ``raw_to_model`` is pulled back with
-    one vjp.
+    * ``"kernel"``: the Triton-route Pallas kernel
+      (``ops/fused_fit.py``) — unsharded hand-adjoint fits on a GPU;
+    * ``"xla"``: the same hand adjoint as plain XLA — other platforms,
+      and sharded batches, where XLA partitions it and inserts the
+      gradient psum (the kernel does not partition);
+    * ``"autodiff"``: layered autodiff of :func:`make_loss` —
+      ``fused="never"`` or a fit with no hand adjoint.
+
+    ``platform`` defaults to ``jax.default_backend()``."""
+    if fused not in ("auto", "never"):
+        raise ValueError(f"fused must be auto|never, got {fused!r}")
+    if fused == "never" or fused_eligible(dist, shadow) is None:
+        return "autodiff"
+    platform = platform or jax.default_backend()
+    return "kernel" if platform == "gpu" and not sharded else "xla"
+
+
+def make_fused_value_and_grad(i, o, target, family: str = "ggx",
+                              route: str = "xla"):
+    """Build the microfacet + Schlick fit step through the hand-written
+    adjoint (hot chain dj_brdf.h:1529-1547): ``route="kernel"`` runs it
+    as the Pallas kernel, ``"xla"`` as plain XLA
+    (``soa.*_lsq_fwdbwd_soa``); see :func:`adjoint_route`. The
+    8-scalar chain through ``raw_to_model`` is pulled back with one
+    vjp.
 
     Returns ``(value_and_grad, data)`` where
     ``value_and_grad(raw, *data) -> (loss, grad_raw)`` and ``data`` is
-    the (padded) 9-tuple of component arrays — pass it *through* your
-    jit boundary so the batch stays a program argument, never a
-    baked-in constant."""
-    from dj_brdf_tpu.ops import soa
-    from dj_brdf_tpu.ops.fused_fit import (ggx_lsq_value_and_grad,
-                                           pad_to_block)
+    the 9-tuple of component arrays — pass it *through* your jit
+    boundary so the batch stays a program argument, never a baked-in
+    constant."""
+    from dj_brdf_tpu.ops import fused_fit, soa
 
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
+    if route not in ("kernel", "xla"):
+        raise ValueError(f"route must be kernel|xla, got {route!r}")
     comp = soa.split_dirs(i, o)
     targets = (target[..., 0], target[..., 1], target[..., 2])
     n = comp[0].size
-    if use_pallas or interpret:
-        comp, targets, n = pad_to_block(comp, targets)
-
     fwdbwd = (soa.beckmann_lsq_fwdbwd_soa if family == "beck"
               else soa.ggx_lsq_fwdbwd_soa)
 
     def value_and_grad(raw: RawFit, *data):
         pvec, vjp = jax.vjp(soa.raw_to_pvec, raw)
-        if use_pallas or interpret:
-            val, gp = ggx_lsq_value_and_grad(pvec, *data, n_valid=n,
-                                             interpret=interpret,
-                                             family=family)
+        if route == "kernel":
+            s, gs = fused_fit.lsq_value_and_grad_batched(
+                pvec[None], *data[:6], *(t[None] for t in data[6:]),
+                family=family)
+            s, gs = s[0], gs[0]
         else:
             s, gs = fwdbwd(pvec, *data)
-            val, gp = s / n, gs / n
-        (graw,) = vjp(gp)
-        return val, graw
+        (graw,) = vjp(gs / n)
+        return s / n, graw
 
     return value_and_grad, (*comp, *targets)
 
@@ -147,14 +157,13 @@ def fit_lsq(dist, i, o, target, steps: int = 200, lr: float = 5e-2,
     gradients reduce over devices automatically.
 
     ``fused``: "auto" routes GGX-family and Beckmann fits through the
-    hand-adjoint fused path (:func:`make_fused_value_and_grad`; Pallas
-    on TPU, the same analytic adjoint in XLA elsewhere/sharded);
-    "never" forces the layered autodiff path (other distributions
-    always use it).
+    hand-written adjoint (:func:`adjoint_route`: the Pallas kernel on a
+    GPU, plain XLA elsewhere or when sharded); "never" forces the
+    layered autodiff path (other distributions always use it).
 
     Returns (params, fresnel, losses)."""
-    if fused not in ("auto", "never"):
-        raise ValueError(f"fused must be auto|never, got {fused!r}")
+    route = adjoint_route(dist, shadow, fused,
+                          sharded=in_shardings is not None)
     raw = init if init is not None else raw_init()
     opt = optax.adam(lr)
     opt_state = opt.init(raw)
@@ -164,15 +173,9 @@ def fit_lsq(dist, i, o, target, steps: int = 200, lr: float = 5e-2,
         o = jax.device_put(o, in_shardings)
         target = jax.device_put(target, in_shardings)
 
-    family = fused_eligible(dist, shadow)
-    if fused == "auto" and family:
-        # the Pallas kernel does not auto-partition; sharded batches
-        # take the XLA form of the same adjoint (psum comes from pjit)
+    if route != "autodiff":
         vg, data = make_fused_value_and_grad(
-            i, o, target,
-            use_pallas=(in_shardings is None
-                        and jax.default_backend() == "tpu"),
-            family=family)
+            i, o, target, family=fused_eligible(dist, shadow), route=route)
     else:
         loss = make_loss(dist, shadow)
 

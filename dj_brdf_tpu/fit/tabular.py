@@ -1,7 +1,7 @@
 """Isotropic tabulation pipeline: extract a microfacet NDF + Fresnel
 from any BRDF by power iteration.
 
-TPU-native version of the ``djb::tabular`` constructor pipeline
+JAX version of the ``djb::tabular`` constructor pipeline
 (dj_brdf.h:2215-2236):
 
     compute_p22_smith -> normalize_p22 -> compute_sigma ->

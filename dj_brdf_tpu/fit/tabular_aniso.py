@@ -1,6 +1,6 @@
 """Anisotropic (elevation x azimuth) tabulation pipeline.
 
-TPU-native version of the ``djb::tabular_anisotropic`` constructor
+JAX version of the ``djb::tabular_anisotropic`` constructor
 (dj_brdf.h:2238-2273) and its precomputations: the (w*h)^2 kernel
 matrix + power iteration (2525-2579), 2D normalization (2306-2338),
 2D projected-area table (2388-2432), and the marginal-azimuth /
@@ -12,8 +12,8 @@ built as one batched device expression. Small problems (n <= 4096)
 power-iterate on host in float64 for bit-level oracle parity
 (the reference ``matrix`` class is always double); production sizes
 stay entirely on device — the 257 MB matrix is built and multiplied
-in one jitted program (4 matvecs, ~milliseconds) and never crosses
-the host link. Row-sharded multi-chip extraction lives in
+in one jitted program (4 matvecs) and never crosses the host link.
+Row-sharded multi-chip extraction lives in
 :mod:`dj_brdf_tpu.parallel.power`.
 
 Table layout is (azimuthal_res, elevation_res) with the elevation axis
@@ -123,12 +123,13 @@ def _device_power_table(A, elevation_res: int, azimuthal_res: int,
     """On-device power iteration (dj_brdf.h:2467-2480) in the working
     precision. Relative f32 matvec error at n~8000 is ~1e-5, well
     inside oracle tolerance; the subsequent normalization removes the
-    scale anyway."""
+    scale anyway. That bound needs true f32 products, so the matvec
+    pins HIGHEST precision (a GPU may otherwise run it in TF32)."""
     w = elevation_res - 1
     h = azimuthal_res
     v = jnp.ones((A.shape[0],), A.dtype)
     for _ in range(iterations):
-        v = A @ v
+        v = jnp.matmul(A, v, precision=jax.lax.Precision.HIGHEST)
     grid = v.reshape(h, w)
     return jnp.concatenate([grid, jnp.zeros((h, 1), A.dtype)], axis=1)
 

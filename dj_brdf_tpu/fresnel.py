@@ -1,6 +1,6 @@
 """Fresnel subsystem.
 
-TPU-native version of the reference ``djb::fresnel`` namespace
+JAX version of the reference ``djb::fresnel`` namespace
 (dj_brdf.h:148-207, impl 1251-1346). Each model is a pytree dataclass
 with a pure ``__call__(cos_theta_d) -> (..., 3)`` so it can be traced,
 vmapped, and differentiated — including w.r.t. its own parameters

@@ -1,6 +1,6 @@
 """Filtered (LEAN/LEADR) render path.
 
-TPU-native version of the ``dj_beckmannconductor`` Mitsuba plugin's
+JAX version of the ``dj_beckmannconductor`` Mitsuba plugin's
 per-shading-point parameter assembly
 (mitsuba/dj_beckmannconductor.cpp:280-428): fetch the (possibly
 mip-filtered) LEAN moments, remove the storage bias, optionally fall

@@ -1,6 +1,6 @@
 """LEAN linear representation of Beckmann slope statistics.
 
-TPU-native version of ``djb::beckmann::lrep`` (dj_brdf.h:330-356, impl
+JAX version of ``djb::beckmann::lrep`` (dj_brdf.h:330-356, impl
 1959-2051): five slope moments (E1,E2 means; E3,E4 second moments; E5
 joint moment) that are closed under addition and scalar scaling with
 covariance-correct operators — the algebra behind LEAN/LEADR filtered

@@ -1,6 +1,6 @@
 """Displacement/normal/LEAN map construction as batched image ops.
 
-TPU-native versions of the reference's CLI map builders:
+JAX versions of the reference's CLI map builders:
 ``utils/dmap2nmap.cpp`` (central-difference normals, :13-44),
 ``utils/nmap2leanmap.cpp`` (slope moments + base roughness, :18-54) and
 ``utils/nmap2leanmap_biased.cpp`` (the +25/+625 bias for unsigned

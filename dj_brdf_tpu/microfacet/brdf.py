@@ -1,7 +1,7 @@
 """Generic Smith-microfacet BRDF: Torrance-Sparrow with the sigma-based
 height-correlated Smith masking term.
 
-TPU-native version of the reference ``djb::microfacet`` evaluation and
+JAX version of the reference ``djb::microfacet`` evaluation and
 sampling core (dj_brdf.h:1529-1791). The reference's virtual dispatch
 becomes static dispatch: each function takes the distribution pytree
 (``GGX``/``Beckmann``/``Tabular``/...) plus a

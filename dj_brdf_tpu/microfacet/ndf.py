@@ -1,6 +1,6 @@
 """Microfacet normal/slope distributions.
 
-TPU-native versions of the reference's distribution hierarchy:
+JAX versions of the reference's distribution hierarchy:
 ``djb::beckmann`` (dj_brdf.h:1863-2051), ``djb::ggx`` (2053-2146),
 ``djb::tabular`` (2148-2176, 2215-2762) and
 ``djb::tabular_anisotropic`` (2178-2211, 2238-3122).
@@ -14,7 +14,7 @@ interface consumed by :mod:`dj_brdf_tpu.microfacet.brdf`:
     for Beckmann/GGX; NDF ("nmap") sampling for tabulated ones)
 
 Everything is branchless (``jnp.where`` instead of the reference's
-``if`` trees) so one code path serves jit/vmap/grad on TPU. Tables in
+``if`` trees) so one code path serves jit/vmap/grad. Tables in
 the tabulated distributions are differentiable pytree leaves.
 """
 
@@ -34,8 +34,7 @@ _SQRT_PI_INV = 0.5641895835477563  # 1/sqrt(pi)
 
 
 def beckmann_qf2_slope_domain(u, cos_theta_k, sin_theta_k,
-                              iterations: int = 4, recip=None,
-                              shared=None):
+                              iterations: int = 4, shared=None):
     """Beckmann visible-slope quantile solved directly in *slope*
     space — returns the sampled x-slope t (== erfinv of the erf-domain
     solution of dj_brdf.h:1897-1952).
@@ -55,13 +54,11 @@ def beckmann_qf2_slope_domain(u, cos_theta_k, sin_theta_k,
     ``shared``: optional (cot, tan, c0, e_cot2) precomputed by the
     caller (the fused SoA kernels share them with sigma_std(o), which
     needs erf/exp of the very same cot)."""
-    if recip is None:
-        recip = lambda x: 1.0 / x
     if shared is None:
         safe_sin = jnp.maximum(sin_theta_k, 1e-12)
         safe_cos = jnp.maximum(cos_theta_k, 1e-12)
-        cot = safe_cos * recip(safe_sin)
-        tan = sin_theta_k * recip(safe_cos)
+        cot = safe_cos * (1.0 / safe_sin)
+        tan = sin_theta_k * (1.0 / safe_cos)
         c0 = erf(cot)
         e_cot2 = jnp.exp(-cot * cot)
     else:
@@ -77,26 +74,25 @@ def beckmann_qf2_slope_domain(u, cos_theta_k, sin_theta_k,
     # kernel feeds unclamped cot there). The floor keeps the
     # reciprocal finite so reverse-mode through gated lanes stays
     # 0 * finite instead of 0 * inf = NaN.
-    normalization = recip(jnp.maximum(
-        1.0 + c0 + _SQRT_PI_INV * tan * e_cot2, 1e-12))
+    normalization = 1.0 / jnp.maximum(
+        1.0 + c0 + _SQRT_PI_INV * tan * e_cot2, 1e-12)
 
     t0 = erfinv(jnp.maximum(-0.9999, b0))
     hi = jnp.minimum(cot, 4.0)
-    return _qf2_root(iterations, recip, u, tan, normalization, t0, hi)
+    return _qf2_root(iterations, u, tan, normalization, t0, hi)
 
 
-@functools.partial(jax.custom_jvp, nondiff_argnums=(0, 1))
-def _qf2_root(iterations, recip, u, tan, normalization, t0, hi):
+@functools.partial(jax.custom_jvp, nondiff_argnums=(0,))
+def _qf2_root(iterations, u, tan, normalization, t0, hi):
     """The Halley iteration core of :func:`beckmann_qf2_slope_domain`.
 
-    The loop is UNROLLED in Python, not lax.fori_loop: the HLO while
-    loop is a fusion barrier on TPU and measured ~50% slower for the
-    whole fused kernel (3.0e9 -> 2.0e9 evals/s). No convergence mask
-    either — refining an already-converged lane is a ~0 step and
-    measurably tightens the residual tail (p999 1e-5 -> 3e-7); the
-    safeguard is a clip to the root bracket [-3.5, min(cot, 4)],
-    which measured bit-equal in residual profile to the shrinking
-    bisection bracket at 3% less cost.
+    The loop is UNROLLED in Python, not lax.fori_loop: an HLO while
+    loop is a fusion barrier, and the iteration sits inside the fused
+    sampling kernels. No convergence mask either — refining an
+    already-converged lane is a ~0 step and tightens the residual tail
+    (p999 1e-5 -> 3e-7); the safeguard is a clip to the root bracket
+    [-3.5, min(cot, 4)], bit-equal in residual profile to the
+    shrinking bisection bracket.
 
     Differentiation is by the IMPLICIT FUNCTION THEOREM (custom_jvp
     below), never through the unrolled iterations: the converged root
@@ -118,7 +114,7 @@ def _qf2_root(iterations, recip, u, tan, normalization, t0, hi):
         t = jnp.clip(t, lo, hi)
         e = jnp.exp(-t * t)
         at = jnp.abs(t)
-        k = recip(1.0 + p * at)
+        k = 1.0 / (1.0 + p * at)
         erf_t = jnp.sign(t) * (1.0 - (((((a5 * k + a4) * k) + a3) * k
                                        + a2) * k + a1) * k * e)
         value = normalization * (1.0 + erf_t + _SQRT_PI_INV * tan * e) - u
@@ -126,23 +122,23 @@ def _qf2_root(iterations, recip, u, tan, normalization, t0, hi):
         dfac = 1.0 - t * tan                     # f' ∝ e (1 - t tan)
         fp = normalization * (2.0 * _SQRT_PI_INV) * e * dfac
         ok_fp = jnp.abs(fp) > 1e-20
-        r = value * recip(jnp.where(ok_fp, fp, 1.0))
+        r = value * (1.0 / jnp.where(ok_fp, fp, 1.0))
         # Halley: f''/(2f') = (-2t(1 - t tan) - tan) / (2 (1 - t tan))
-        h = (-2.0 * t * dfac - tan) * recip(
-            2.0 * jnp.where(jnp.abs(dfac) > 1e-12, dfac, 1.0))
+        h = (-2.0 * t * dfac - tan) * (1.0 / (
+            2.0 * jnp.where(jnp.abs(dfac) > 1e-12, dfac, 1.0)))
         den = 1.0 - r * h
         ok_h = ok_fp & (den > 0.5) & (jnp.abs(dfac) > 1e-12)
-        step = r * jnp.where(ok_h, recip(jnp.where(ok_h, den, 1.0)), 1.0)
+        step = r * jnp.where(ok_h, 1.0 / jnp.where(ok_h, den, 1.0), 1.0)
         step = jnp.where(ok_fp, step, 0.0)
         t = t - step
     return jnp.clip(t, lo, hi)
 
 
 @_qf2_root.defjvp
-def _qf2_root_jvp(iterations, recip, primals, tangents):
+def _qf2_root_jvp(iterations, primals, tangents):
     u, tan, normalization, t0, hi = primals
     du, dtan, dnorm, _, _ = tangents  # the root is init/bracket-free
-    t = _qf2_root(iterations, recip, u, tan, normalization, t0, hi)
+    t = _qf2_root(iterations, u, tan, normalization, t0, hi)
     e = jnp.exp(-t * t)
     # F_t = N (2/sqrt(pi)) e (1 - t tan)  (>= 0; -> 0 in the flat tail,
     # where the true quantile sensitivity genuinely diverges). The
@@ -154,8 +150,8 @@ def _qf2_root_jvp(iterations, recip, primals, tangents):
     ft = normalization * (2.0 * _SQRT_PI_INV) * e * (1.0 - t * tan)
     ft = jnp.maximum(ft, 1e-3)
     f_tan = normalization * _SQRT_PI_INV * e
-    f_norm = u * recip(jnp.maximum(normalization, 1e-30))  # (1+erf t+..)
-    dt = (du - f_tan * dtan - f_norm * dnorm) * recip(ft)
+    f_norm = u * (1.0 / jnp.maximum(normalization, 1e-30))  # (1+erf t+..)
+    dt = (du - f_tan * dtan - f_norm * dnorm) * (1.0 / ft)
     return t, dt
 
 

@@ -1,6 +1,6 @@
 """Microfacet slope-distribution parameters.
 
-TPU-native version of ``djb::microfacet::params`` (dj_brdf.h:212-243,
+JAX version of ``djb::microfacet::params`` (dj_brdf.h:212-243,
 impl 1348-1506). The canonical storage is the PDF parameterization
 (alpha_x, alpha_y, rho, tx_n, ty_n): Gaussian-slope scales, slope
 correlation, and the non-central mean-normal slope offset. The

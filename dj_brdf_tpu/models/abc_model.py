@@ -1,6 +1,6 @@
 """ABC analytic BRDF fits.
 
-TPU-native version of ``djb::abc`` (dj_brdf.h:513-535, 3502-3668):
+JAX version of ``djb::abc`` (dj_brdf.h:513-535, 3502-3668):
 D(h) = A / (1 + B (1 - cos theta_h))^C with a V-cavity min-style GAF
 and exact unpolarized Fresnel from a scalar ior, fitted per MERL
 material (parameters provided to the reference by Joel Kronander; the

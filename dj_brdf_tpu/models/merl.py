@@ -1,23 +1,20 @@
 """MERL measured-BRDF evaluation.
 
-TPU-native version of ``djb::merl`` (dj_brdf.h:870-1024): the
-90x90x180x3 table lives in HBM as one f32 array (~17.5 MB, replicated
+JAX version of ``djb::merl`` (dj_brdf.h:870-1024): the
+90x90x180x3 table lives in device memory as one f32 array (~17.5 MB, replicated
 per device — never sharded); evaluation is a fused angle transform
 (Rusinkiewicz io->hd in closed component form — no Rodrigues
 rotations), the three MERL index warps (non-linear sqrt theta_h bin,
 reciprocity-folded phi_d), and ONE channel-interleaved row gather.
 
-Performance notes (measured on TPU v5e, see docs/DESIGN.md §6):
+Layout notes (docs/DESIGN.md "Measured-table gathers"):
 
 * The table must reach the jitted program as an *argument* (a pytree
   leaf), never as a jit closure constant: XLA embeds closure arrays as
-  program literals, which both explodes compile time (~190 s) and
-  forces a catastrophically slow gather path (~2.7e7 evals/s vs
-  ~2.1e8 for the same gather against an HBM parameter).
-* One gather of a (1, 3) channel-interleaved row per sample is ~5x
-  faster than three scalar gathers: TPU gathers are issue-rate-bound
-  (~2e8 rows/s regardless of row width or table size), so fetching
-  all channels per issued index is the right shape.
+  program literals, which inflates compile time and takes a slower
+  gather path.
+* One gather of a (1, 3) channel-interleaved row per sample issues one
+  index for all three channels instead of three scalar gathers.
 
 Lookup is nearest-neighbour, exactly like the reference — gradients
 w.r.t. directions are therefore zero a.e.; the *table* is the
@@ -153,10 +150,10 @@ class Merl:
         """f_r lookup (reference merl::eval, dj_brdf.h:987-1024).
         Returns (..., 3); negative raw entries (below-horizon) map to 0.
 
-        One channel-interleaved row gather per sample: TPU gathers are
-        issue-rate-bound, so the (N, 3) row fetch costs the same as one
-        scalar fetch. The in-program transpose of the table is a single
-        streaming pass (~50 us), amortized across the ~20 ms gather."""
+        One channel-interleaved row gather per sample: the (N, 3) row
+        fetch issues one index for three channels. The in-program
+        transpose of the table is a single streaming pass, amortized
+        across the gather."""
         idx = merl_flat_index(i, o)
         inter = jnp.transpose(self.table.reshape(3, -1), (1, 0))  # (n, 3)
         # indices are clipped in-range by the bin warps -> 'clip' mode

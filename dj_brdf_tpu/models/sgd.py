@@ -1,6 +1,6 @@
 """Shifted-Gamma-Distribution analytic BRDF fits.
 
-TPU-native version of ``djb::sgd`` (dj_brdf.h:480-511, 3309-3500):
+JAX version of ``djb::sgd`` (dj_brdf.h:480-511, 3309-3500):
 an analytic microfacet-style model with per-channel SGD NDF and
 exponential-form shadowing, fitted to each of the 100 MERL materials
 (parameters after Bagher, Soler, Holzschuch, EGSR 2012; the table is
@@ -8,7 +8,7 @@ shipped as data in ``models/data/material_tables.npz``).
 
 All 100 materials live in one (100, 12, 3) device array, so a whole
 material batch evaluates as one fused kernel (vmap over the material
-axis) — the TPU replacement for the reference's name->row pointer.
+axis) — the device replacement for the reference's name->row pointer.
 """
 
 from __future__ import annotations

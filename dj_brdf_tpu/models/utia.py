@@ -1,23 +1,21 @@
 """UTIA measured-BRDF evaluation.
 
-TPU-native version of ``djb::utia`` (dj_brdf.h:1026-1177, after Jiri
+JAX version of ``djb::utia`` (dj_brdf.h:1026-1177, after Jiri
 Filip's implementation): a (3, 6, 48, 6, 48) table evaluated with
 quadrilinear interpolation in *degree* space over
 (theta_i, phi_i, theta_v, phi_v), followed by the per-channel
 sRGB-like decode and the x100 radiometric scale. The 16-tap gather +
 weights is fully differentiable w.r.t. both directions and the table.
 
-Performance design (measured on TPU v5e, docs/DESIGN.md §6): TPU
-gathers are issue-rate-bound (~2e8 issued rows/s regardless of row
-width), so the 16 taps x 3 channels = 48 scalar gathers of the naive
-formulation cap at ~4e6 evals/s. Instead the loader pre-expands the
-table into a *corner-packed* layout ``packed[(ti,pi,tv,pv), 16*3]``
-holding each cell's full 2x2x2x2 interpolation neighbourhood
-contiguously (11 MB, phi axes wrapped, theta axes need no clamp since
-i0 <= n-2): evaluation is then ONE 192-byte row gather per sample plus
-a 16-tap weighted reduction in registers — ~60x faster. Tables are
-always passed as jit arguments (pytree leaves), never closed over
-(closure constants hit a ~600x slower XLA gather path).
+Layout (docs/DESIGN.md "Measured-table gathers"): the 16 taps x 3
+channels of the naive formulation are 48 scalar gathers per sample.
+Instead the loader pre-expands the table into a *corner-packed* layout
+``packed[(ti,pi,tv,pv), 16*3]`` holding each cell's full 2x2x2x2
+interpolation neighbourhood contiguously (11 MB, phi axes wrapped,
+theta axes need no clamp since i0 <= n-2): evaluation is then ONE
+192-byte row gather per sample plus a 16-tap weighted reduction in
+registers. Tables are always passed as jit arguments (pytree leaves),
+never closed over (closure constants take a slower XLA gather path).
 
 The load-time clamp-negatives and the 1/140 magic scale
 (dj_brdf.h:1162-1177) are applied by the loader
@@ -26,6 +24,7 @@ The load-time clamp-negatives and the 1/140 magic scale
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 from dj_brdf_tpu.core.pytree import pytree_dataclass
@@ -146,7 +145,9 @@ class Utia:
         w = (wt[..., :, None, None, None] * wp[..., None, :, None, None]
              * wv[..., None, None, :, None] * wq[..., None, None, None, :])
         w = w.reshape(*w.shape[:-4], 16)
-        rgb = jnp.einsum("...k,...kc->...c", w, taps)
+        # HIGHEST: true f32 taps (no TF32), as the oracle parity needs
+        rgb = jnp.einsum("...k,...kc->...c", w, taps,
+                         precision=jax.lax.Precision.HIGHEST)
         return _decode(rgb, below)
 
     def evalp(self, i, o):

@@ -1,17 +1,17 @@
-"""Fused Pallas kernel: GGX fitting loss forward+backward in one pass.
+"""Fit-loss forward + hand adjoint as one Pallas kernel (Triton route).
 
-The fitting step's cost is one read of the sample batch (36 B/sample)
-plus ~300 flops; XLA's autodiff materializes forward residuals to HBM
-between the forward and backward passes, which caps throughput around
-1e9 evals/s/chip. This kernel keeps everything in VMEM: each grid step
-loads a tile of (i, o, target) components, evaluates the loss *and*
-its parameter gradient via an in-kernel VJP (residuals live in
-registers/VMEM), and writes one 16-lane partial row. The final
-(loss, grad) is a tiny sum over grid rows.
+One launch fits M materials against a shared direction set: each
+program loads one block of the six direction components once, keeps it
+in registers, and loops over the materials inside the block, reading
+only that material's three target rows (12 B/sample/material). The XLA
+form of the same adjoint (``jax.vmap`` of ``soa.*_lsq_fwdbwd_soa``)
+rereads the 24 B/sample of directions for every material. M = 1 is the
+single-material fit.
 
-Gradients are w.r.t. the 8 constrained parameters
-[ax, ay, rho, txn, tyn, f0r, f0g, f0b]; chain through
-``fit.lsq.raw_to_model`` happens outside (8 scalars — free).
+Each (block, material) pair writes one 16-lane row [loss, grad(8), 0...];
+the rows are summed outside the kernel. Gradients are w.r.t. the 8
+constrained parameters [ax, ay, rho, txn, tyn, f0r, f0g, f0b]; the
+chain through ``fit.lsq.raw_to_model`` happens outside.
 """
 
 from __future__ import annotations
@@ -21,200 +21,69 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from dj_brdf_tpu.ops.soa import (beckmann_lsq_fwdbwd_soa,
-                                 ggx_lsq_fwdbwd_soa, ggx_lsq_loss_soa)
+from dj_brdf_tpu.ops.soa import beckmann_lsq_fwdbwd_soa, ggx_lsq_fwdbwd_soa
 
-LANES = 128
-_PAD = 16  # output lanes used: 1 loss + 8 grads
-
-
-def _emit(out_ref, val, grad):
-    row = jnp.concatenate([val[None], grad,
-                           jnp.zeros((LANES - 9,), jnp.float32)])
-    # TPU wants (8, 128)-aligned output tiles; rows 1-7 stay zero
-    out_ref[:] = jnp.concatenate([row[None, :],
-                                  jnp.zeros((7, LANES), jnp.float32)], axis=0)
-
-
-def _recip_nr(x):
-    """VPU approximate reciprocal + one Newton step: ~2x faster than a
-    full f32 divide at < 1 ulp residual error after refinement."""
-    r = pl.reciprocal(x, approx=True)
-    return r * (2.0 - x * r)
-
-
+_ROW = 16  # output lanes per (block, material): 1 loss + 8 grads
 _FWDBWD = {"ggx": ggx_lsq_fwdbwd_soa, "beck": beckmann_lsq_fwdbwd_soa}
+# masked-off lanes read i = +z, o = -z (below the horizon) and target 0,
+# which the adjoint gates to exactly zero loss and gradient
+_DIR_FILL = (0.0, 0.0, 1.0, 0.0, 0.0, -1.0)
 
 
-def _kernel_hand(pvec_ref, ix, iy, iz, ox, oy, oz, tr, tg, tb, out_ref,
-                 *, family="ggx"):
-    """Hand-written adjoint (soa.*_lsq_fwdbwd_soa): every backward
-    term reuses a forward register — no VJP recompute. ``family``
-    selects GGX or Beckmann (the reference treats the two fits as
-    co-equal, dj_brdf.h:3133-3184)."""
-    pvec = pvec_ref[0, :8]
-    data = tuple(r[:] for r in (ix, iy, iz, ox, oy, oz, tr, tg, tb))
-    val, grad = _FWDBWD[family](pvec, *data, recip=_recip_nr)
-    _emit(out_ref, val, grad)
+def _kernel(pvec_ref, ix, iy, iz, ox, oy, oz, tr, tg, tb, out_ref, *,
+            family: str, n: int, m: int, block: int):
+    g = pl.program_id(0)
+    idx = g * block + jnp.arange(block)
+    mask = idx < n
+    dirs = tuple(plgpu.load(r.at[idx], mask=mask, other=fill)
+                 for r, fill in zip((ix, iy, iz, ox, oy, oz), _DIR_FILL))
+    lane = jnp.arange(_ROW)
+
+    def material(k, carry):
+        pvec = tuple(pvec_ref[k * 8 + j] for j in range(8))
+        tgt = tuple(plgpu.load(t.at[k * n + idx], mask=mask, other=0.0)
+                    for t in (tr, tg, tb))
+        val, grad = _FWDBWD[family](pvec, *dirs, *tgt, stack=tuple)
+        row = sum(jnp.where(lane == j, s, 0.0)
+                  for j, s in enumerate((val, *grad)))
+        plgpu.store(out_ref.at[(g * m + k) * _ROW + lane], row)
+        return carry
+
+    jax.lax.fori_loop(0, m, material, 0)
 
 
-def _kernel_ad(pvec_ref, ix, iy, iz, ox, oy, oz, tr, tg, tb, out_ref):
-    """In-kernel jax.vjp variant, kept as a cross-check baseline."""
-    pvec = pvec_ref[0, :8]
-    data = tuple(r[:] for r in (ix, iy, iz, ox, oy, oz, tr, tg, tb))
-    n_total = data[0].size
-
-    def f(pv):
-        # sum (not mean) so partials add across grid steps
-        return ggx_lsq_loss_soa(pv, *data) * n_total
-
-    val, vjp = jax.vjp(f, pvec)
-    (grad,) = vjp(jnp.float32(1.0))
-    _emit(out_ref, val, grad)
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("block_rows", "interpret", "n_valid",
-                                    "adjoint", "family"))
-def ggx_lsq_value_and_grad(pvec, ix, iy, iz, ox, oy, oz, tr, tg, tb,
-                           block_rows: int = 128, interpret: bool = False,
-                           n_valid: int | None = None,
-                           adjoint: str = "hand", family: str = "ggx"):
-    """Returns (loss, grad(8,)) for the relative-L2 microfacet+Schlick
-    fit (``family``: "ggx" or "beck" — the reference's co-equal fit
-    pair, dj_brdf.h:3133-3184).
-
-    Inputs are flat f32 arrays whose size must be a multiple of
-    128*block_rows (pad with zero-contribution samples if needed; see
-    :func:`pad_to_block`, and pass the true count as ``n_valid``).
-    ``adjoint`` selects the in-kernel backward: "hand" (analytic,
-    default) or "ad" (jax.vjp cross-check, GGX only)."""
-    if adjoint == "ad" and family != "ggx":
-        raise ValueError("adjoint='ad' cross-check exists for the GGX "
-                         f"loss only, got family={family!r}")
-    n = ix.size
-    rows = n // LANES
-    assert rows * LANES == n and rows % block_rows == 0, (n, block_rows)
-    grid = rows // block_rows
-
-    def reshape(a):
-        return a.reshape(rows, LANES)
-
-    data = [reshape(a) for a in (ix, iy, iz, ox, oy, oz, tr, tg, tb)]
-    pvec_pad = jnp.zeros((1, LANES), jnp.float32).at[0, :8].set(pvec)
-
-    in_specs = [pl.BlockSpec((1, LANES), lambda g: (0, 0),
-                             memory_space=pltpu.VMEM)]
-    in_specs += [pl.BlockSpec((block_rows, LANES), lambda g: (g, 0),
-                              memory_space=pltpu.VMEM)] * 9
-
-    partials = pl.pallas_call(
-        (functools.partial(_kernel_hand, family=family)
-         if adjoint == "hand" else _kernel_ad),
-        grid=(grid,),
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec((8, LANES), lambda g: (g, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((grid * 8, LANES), jnp.float32),
-        interpret=interpret,
-    )(pvec_pad, *data)
-
-    total = jnp.sum(partials, axis=0)
-    n_eff = jnp.float32(n if n_valid is None else n_valid)
-    return total[0] / n_eff, total[1:9] / n_eff
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("block_rows", "interpret", "n_valid",
-                                    "mean_over_materials", "family"))
-def ggx_lsq_value_and_grad_batched(pvecs, ix, iy, iz, ox, oy, oz,
-                                   tr, tg, tb, block_rows: int = 128,
-                                   interpret: bool = False,
-                                   n_valid: int | None = None,
-                                   mean_over_materials: bool = False,
-                                   family: str = "ggx"):
-    """Batched (per-material) fused fit step: one kernel launch fits M
-    materials against a SHARED direction set — the device form of the
-    reference's per-file loop (examples/merl_params.cpp:53-68).
+@functools.partial(jax.jit, static_argnames=("family", "block", "num_warps",
+                                             "interpret"))
+def lsq_value_and_grad_batched(pvecs, ix, iy, iz, ox, oy, oz, tr, tg, tb,
+                               family: str = "ggx", block: int = 256,
+                               num_warps: int = 4, interpret: bool = False):
+    """Per-material ``(loss_sum (M,), grad_sum (M, 8))`` of the
+    relative-L2 microfacet + Schlick fit (``family`` "ggx" or "beck").
 
     ``pvecs``: (M, 8) constrained parameter rows. Directions ix..oz:
-    flat (N,) shared across materials; targets tr/tg/tb: (M, N) per
-    material. N must be a multiple of 128*block_rows (pad with
-    :func:`pad_to_block`, passing the true count as ``n_valid``).
+    flat (N,), shared by all materials. Targets tr/tg/tb: (M, N). Any N
+    works: the last block is masked. Sums, not means: divide by N (and
+    the gradient by M for a mean over materials) outside.
 
-    Grid is (N-blocks, M) with the material loop innermost, so each
-    direction block is fetched into VMEM once and reused for all M
-    materials — target traffic (12 B/sample/material) is the only
-    per-material HBM cost. Returns ``(loss (M,), grad (M, 8))``; with
-    ``mean_over_materials`` the grads are additionally divided by M
-    (the gradient of the mean loss, what a joint optimizer wants)."""
-    m = pvecs.shape[0]
-    n = ix.size
-    rows = n // LANES
-    assert rows * LANES == n and rows % block_rows == 0, (n, block_rows)
-    grid_n = rows // block_rows
-
-    def reshape(a):
-        return a.reshape(rows, LANES)
-
-    dirs = [reshape(a) for a in (ix, iy, iz, ox, oy, oz)]
-    tgts = [t.reshape(m * rows, LANES) for t in (tr, tg, tb)]
-    # one (8, LANES)-aligned tile per material, params in row 0
-    # (TPU block shapes must be (8k, 128k) unless equal to the array)
-    pvec_pad = jnp.zeros((m * 8, LANES), jnp.float32) \
-        .at[::8, :8].set(pvecs)
-
-    in_specs = [pl.BlockSpec((8, LANES), lambda g, k: (k, 0),
-                             memory_space=pltpu.VMEM)]
-    # direction blocks depend only on g: constant over the inner
-    # material loop, so pallas keeps them resident in VMEM
-    in_specs += [pl.BlockSpec((block_rows, LANES), lambda g, k: (g, 0),
-                              memory_space=pltpu.VMEM)] * 6
-    in_specs += [pl.BlockSpec(
-        (block_rows, LANES),
-        lambda g, k, _g=grid_n: (k * _g + g, 0),
-        memory_space=pltpu.VMEM)] * 3
-
-    partials = pl.pallas_call(
-        functools.partial(_kernel_hand, family=family),
-        grid=(grid_n, m),
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec((8, LANES),
-                               lambda g, k, _m=m: (g * _m + k, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((grid_n * m * 8, LANES), jnp.float32),
+    ``block`` samples per program and ``num_warps`` default to the
+    fastest of (256, 4), (512, 4), (1024, 8) on an H100 at 2^23
+    samples and at 16 and 100 materials x 2^20 (PERF.md)."""
+    m, n = tr.shape
+    grid = pl.cdiv(n, block)
+    kernel = functools.partial(_kernel, family=family, n=n, m=m,
+                               block=block)
+    rows = pl.pallas_call(
+        kernel,
+        grid=(grid,),
+        out_shape=jax.ShapeDtypeStruct((grid * m * _ROW,), jnp.float32),
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps,
+                                             num_stages=1),
+        backend="triton",
         interpret=interpret,
-    )(pvec_pad, *dirs, *tgts)
-
-    rows0 = partials.reshape(grid_n, m, 8, LANES)[:, :, 0, :].sum(axis=0)
-    n_eff = jnp.float32(n if n_valid is None else n_valid)
-    loss = rows0[:, 0] / n_eff
-    grad = rows0[:, 1:9] / n_eff
-    if mean_over_materials:
-        grad = grad / jnp.float32(m)
-    return loss, grad
-
-
-def pad_to_block(arrays, targets, block_rows: int = 128):
-    """Pad sample arrays to a multiple of 128*block_rows with samples
-    whose target and prediction are forced to 0 (o below horizon), so
-    they contribute nothing to loss or grad; returns arrays + the
-    original count for correct mean normalization. Targets may carry
-    leading batch axes (e.g. a material axis); padding is on the last
-    (sample) axis."""
-    n = arrays[0].size
-    unit = LANES * block_rows
-    n_pad = (-n) % unit
-    if n_pad == 0:
-        return arrays, targets, n
-    def pad(a, fill):
-        return jnp.concatenate(
-            [a, jnp.full(a.shape[:-1] + (n_pad,), fill, a.dtype)], axis=-1)
-    # o = (0,0,-1): below horizon -> evalp = 0; target 0 -> loss term 0
-    ix, iy, iz, ox, oy, oz = arrays
-    arrays = (pad(ix, 0.0), pad(iy, 0.0), pad(iz, 1.0),
-              pad(ox, 0.0), pad(oy, 0.0), pad(oz, -1.0))
-    targets = tuple(pad(t, 0.0) for t in targets)
-    return arrays, targets, n
+        name=f"{family}_lsq_fwdbwd",
+    )(pvecs.reshape(-1), ix, iy, iz, ox, oy, oz,
+      tr.reshape(-1), tg.reshape(-1), tb.reshape(-1))
+    sums = rows.reshape(grid, m, _ROW).sum(axis=0)
+    return sums[:, 0], sums[:, 1:9]

@@ -3,7 +3,7 @@
 Replaces the reference's serial direction loops (sigma integral
 dj_brdf.h:2348-2386, furnace test tests/nrm_utia.cpp:20-51) with
 quadrature grids sharded across the mesh data axis; the reduction is a
-plain sum, so XLA turns the final combine into a psum over ICI.
+plain sum, so XLA turns the final combine into a psum across devices.
 """
 
 from __future__ import annotations

@@ -5,7 +5,11 @@ shards over *data* — sample directions, pixels, materials — with
 replicated parameters (they're a handful of scalars plus small
 tables), plus one TP-style row-sharded matvec for the anisotropic
 power iteration. Collectives are XLA-inserted from shardings (psum of
-gradient/integral partials over ICI); no hand-written communication.
+gradient/integral partials) or written as ``shard_map`` collectives
+(the power iteration's all_gather); XLA hands them to NCCL on GPUs.
+One 1-D axis is the right mesh for cards joined all to all (NVLink):
+every pair of devices talks at the same rate, so the mesh follows the
+algorithm alone.
 """
 
 from __future__ import annotations
@@ -37,11 +41,11 @@ def replicated(mesh: Mesh) -> NamedSharding:
 def init_distributed(coordinator_address: str | None = None,
                      num_processes: int | None = None,
                      process_id: int | None = None) -> None:
-    """Multi-host bring-up: call once per host before any jax use.
-    Thin wrapper over ``jax.distributed.initialize`` (auto-detects
-    under standard TPU pod env vars when args are None); afterwards
-    :func:`make_mesh` spans all hosts' devices and collectives ride
-    ICI within a slice / DCN across hosts."""
+    """Multi-process bring-up: call once per process before any jax
+    use. Thin wrapper over ``jax.distributed.initialize``; pass the
+    coordinator address (``host:port``), the process count and this
+    process's id explicitly where no cluster manager provides them.
+    Afterwards :func:`make_mesh` spans every process's devices."""
     jax.distributed.initialize(coordinator_address=coordinator_address,
                                num_processes=num_processes,
                                process_id=process_id)

@@ -6,7 +6,7 @@ resolution — four times from an all-ones start (dj_brdf.h:2525-2579,
 2467-2480). Here each mesh shard *builds its own row block on the fly*
 (never materializing more than n/D rows per device), computes its
 local matvec partial, and the full iterate is reassembled with an
-all-gather over ICI — the framework's one TP-style pattern.
+all-gather between devices — the framework's one TP-style pattern.
 """
 
 from __future__ import annotations
@@ -14,12 +14,8 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax import shard_map
 from jax.sharding import PartitionSpec as P
-
-try:
-    from jax import shard_map
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map
 
 from dj_brdf_tpu.core.math import from_spherical
 from dj_brdf_tpu.parallel.mesh import DATA_AXIS
@@ -110,11 +106,14 @@ def aniso_p22_sharded(brdf, elevation_res: int, azimuthal_res: int,
         K_blk = (k1_b[None, :] * wgt[:, None]
                  * jnp.maximum(0.0, m_dot_o))          # (n, n_pad/D)
 
+        # true f32 products (no TF32): the oracle parity of the p22
+        # table rests on f32 matvec error
+        hi = jax.lax.Precision.HIGHEST
         v = jnp.ones((n,), jnp.float32)
-        partial = v @ K_blk
+        partial = jnp.matmul(v, K_blk, precision=hi)
         for _ in range(iterations - 1):
             v = jax.lax.all_gather(partial, DATA_AXIS, tiled=True)[:n]
-            partial = v @ K_blk                        # (n_pad/D,) my outputs
+            partial = jnp.matmul(v, K_blk, precision=hi)  # my outputs
         return partial
 
     fn = jax.jit(shard_map(

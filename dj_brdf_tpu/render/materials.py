@@ -92,8 +92,8 @@ class MicrofacetMaterial:
             return (jnp.stack([wr, wg, wb], -1),
                     jnp.stack([ix, iy, iz], -1), pdf)
         w, i, pdf = mf.evalp_is(self.dist, self.fres, self.params, u1, u2, o)
-        # align the fallback with the fused kernels at the edge lanes
-        # (ADVICE r2): warped-receiver horizon check c(o) <= 0
+        # align the fallback with the fused kernels at the edge lanes:
+        # warped-receiver horizon check c(o) <= 0
         p = self.params
         c_o = o[..., 2] - o[..., 0] * p.txn - o[..., 1] * p.tyn
         bad = c_o <= 0.0

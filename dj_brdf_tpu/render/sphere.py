@@ -1,7 +1,7 @@
 """Differentiable sphere shading — the renderer integration layer.
 
 The reference exposes its BRDFs to a renderer through six Mitsuba BSDF
-plugins (mitsuba/*.cpp); the TPU-native equivalent is a small JAX
+plugins (mitsuba/*.cpp); the JAX equivalent is a small JAX
 renderer: a directly lit sphere (the classic BRDF "matpreview" ball)
 rendered as one fused program, differentiable end-to-end so pixel
 gradients flow into BRDF parameters (BASELINE.json configs 3-5).

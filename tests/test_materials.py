@@ -158,7 +158,7 @@ def test_microfacet_material_fused_dispatch():
 
 def test_fallback_matches_fused_at_horizon_edge():
     """A material renders bit-consistently whichever evalp_is path
-    dispatches it (ADVICE r2): below-mean-normal-horizon receivers get
+    dispatches it: below-mean-normal-horizon receivers get
     weight = pdf = 0 on BOTH the fused and the layered fallback path
     (the reference's arbitrary up-sample, dj_brdf.h:1677-1678, is
     suppressed identically)."""

@@ -244,8 +244,8 @@ def test_tabular_nmap_sampler_matches_source_distribution(rng):
 
 
 def test_aniso_moment_fits_vmap_over_table_batch():
-    """The anisotropic moment fits are pure device computations
-    (VERDICT r3 #5): jit(vmap(fit)) over a stack of tables must match
+    """The anisotropic moment fits are pure device computations:
+    jit(vmap(fit)) over a stack of tables must match
     the per-table loop, and gradients must flow to the table."""
     from dj_brdf_tpu import fresnel as fm
     from dj_brdf_tpu.fit import moments, tabular as ft, tabular_aniso as fta

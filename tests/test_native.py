@@ -22,6 +22,36 @@ def test_native_merl_parser_matches_numpy(tmp_path, rng):
     np.testing.assert_array_equal(a, b)
 
 
+def test_builds_serially_without_openmp_link(tmp_path, rng):
+    """A toolchain that cannot link OpenMP (a GCC without libgomp's
+    spec file) still builds the library, serially, and it parses MERL
+    files like the numpy loader."""
+    import ctypes
+    import os
+    import shutil
+    import subprocess
+
+    for f in ("Makefile", "djbio.cpp"):
+        shutil.copy(os.path.join(os.path.dirname(native._SO), f), tmp_path)
+    cxx = tmp_path / "cxx"
+    cxx.write_text('#!/bin/sh\nfor a in "$@"; do\n'
+                   '  [ "$a" = -fopenmp ] && exit 1\ndone\n'
+                   'exec g++ "$@"\n')
+    cxx.chmod(0o755)
+    subprocess.run(["make", "-C", str(tmp_path), f"CXX={cxx}"], check=True,
+                   capture_output=True)
+    lib = ctypes.CDLL(str(tmp_path / "libdjbio.so"))
+    lib.djbio_load_merl.argtypes = [
+        ctypes.c_char_p,
+        np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")]
+    path = str(tmp_path / "t.binary")
+    save_merl(path, rng.uniform(0, 2, (3, 90, 90, 180)))
+    out = np.empty(3 * 90 * 90 * 180, np.float32)
+    assert lib.djbio_load_merl(path.encode(), out) == 0
+    np.testing.assert_array_equal(out.reshape(3, 90, 90, 180),
+                                  load_merl(path, use_native=False))
+
+
 def test_native_utia_parser_matches_numpy(tmp_path, rng):
     table = rng.uniform(-0.5, 3, (3, 6, 48, 6, 48))
     path = str(tmp_path / "u.bin")

@@ -1,10 +1,11 @@
-"""SoA fast path and fused Pallas kernel: equivalence with the general
-microfacet path and with XLA autodiff (kernel runs in interpret mode
-on CPU; the real TPU path is exercised by bench.py)."""
+"""SoA fast path and the fit-loss Pallas kernel: equivalence with the
+general microfacet path and with XLA autodiff (the kernel runs in
+interpret mode on the CPU; chip_smoke.py runs it compiled on a GPU)."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from dj_brdf_tpu import fresnel
 from dj_brdf_tpu.core.math import from_spherical
@@ -12,7 +13,16 @@ from dj_brdf_tpu.microfacet import brdf as mf
 from dj_brdf_tpu.microfacet.ndf import GGX
 from dj_brdf_tpu.microfacet.params import MicrofacetParams
 from dj_brdf_tpu.ops import soa
-from dj_brdf_tpu.ops.fused_fit import (ggx_lsq_value_and_grad, pad_to_block)
+from dj_brdf_tpu.ops.fused_fit import lsq_value_and_grad_batched
+
+
+def kernel_value_and_grad(pvec, *data, family="ggx", **kw):
+    """The Pallas kernel (interpret mode) at M = 1, as means."""
+    n = data[0].size
+    s, g = lsq_value_and_grad_batched(pvec[None], *data[:6],
+                                      *(t[None] for t in data[6:]),
+                                      family=family, interpret=True, **kw)
+    return s[0] / n, g[0] / n
 
 
 def make_batch(rng, n):
@@ -47,13 +57,11 @@ def test_fused_kernel_matches_autodiff(rng):
                        jnp.float32)
     want_val, want_grad = jax.value_and_grad(soa.ggx_lsq_loss_soa)(
         pvec, *comp, tr, tg, tb)
-    for adjoint in ("hand", "ad"):
-        got_val, got_grad = ggx_lsq_value_and_grad(
-            pvec, *comp, tr, tg, tb, interpret=True, adjoint=adjoint)
-        # "hand" uses the approx-reciprocal + Newton step: ~1e-5 rel
-        rtol_val = 1e-4 if adjoint == "hand" else 1e-5
+    for block in (256, 1024):
+        got_val, got_grad = kernel_value_and_grad(pvec, *comp, tr, tg, tb,
+                                                  block=block)
         np.testing.assert_allclose(float(got_val), float(want_val),
-                                   rtol=rtol_val)
+                                   rtol=1e-5)
         np.testing.assert_allclose(np.asarray(got_grad),
                                    np.asarray(want_grad),
                                    rtol=3e-4, atol=1e-6)
@@ -92,7 +100,9 @@ def test_hand_adjoint_matches_autodiff(rng):
 
 
 def test_fused_kernel_padding(rng):
-    n = 1000  # not a multiple of 128*256
+    """A sample count that is no multiple of the block: the masked
+    tail lanes contribute nothing."""
+    n = 1000  # not a multiple of the 256-sample block
     i, o = make_batch(rng, n)
     comp = soa.split_dirs(i, o)
     pvec_true = jnp.asarray([0.3, 0.3, 0.0, 0.0, 0.0, 0.8, 0.8, 0.8],
@@ -100,9 +110,7 @@ def test_fused_kernel_padding(rng):
     tr, tg, tb = soa.ggx_evalp_soa(pvec_true, *comp)
     pvec = jnp.asarray([0.5, 0.4, 0.0, 0.0, 0.0, 0.5, 0.5, 0.5], jnp.float32)
 
-    arrays, targets, n_valid = pad_to_block(comp, (tr, tg, tb), 256)
-    got_val, got_grad = ggx_lsq_value_and_grad(
-        pvec, *arrays, *targets, interpret=True, n_valid=n_valid)
+    got_val, got_grad = kernel_value_and_grad(pvec, *comp, tr, tg, tb)
     want_val, want_grad = jax.value_and_grad(soa.ggx_lsq_loss_soa)(
         pvec, *comp, tr, tg, tb)
     np.testing.assert_allclose(float(got_val), float(want_val), rtol=1e-4)
@@ -176,11 +184,9 @@ def test_fused_beckmann_evalp_is_matches_layered(rng):
 
 
 def test_batched_fused_kernel_matches_vmapped_adjoint(rng):
-    """ggx_lsq_value_and_grad_batched (shared-direction material batch)
-    == vmap of the hand adjoint == vmap of XLA autodiff."""
-    from dj_brdf_tpu.ops.fused_fit import ggx_lsq_value_and_grad_batched
-
-    m, n = 3, 128 * 256
+    """lsq_value_and_grad_batched (shared-direction material batch, the
+    material loop inside each block) == vmap of the hand adjoint."""
+    m, n = 3, 128 * 256 + 77
     i, o = make_batch(rng, n)
     comp = soa.split_dirs(i, o)
     pvec_true = jnp.asarray([0.25, 0.3, 0.1, 0.0, 0.0, 0.9, 0.6, 0.3],
@@ -195,31 +201,22 @@ def test_batched_fused_kernel_matches_vmapped_adjoint(rng):
                          [0.35, 0.35, 0.0, 0.0, 0.0, 0.5, 0.5, 0.5]],
                         jnp.float32)
 
-    got_loss, got_grad = ggx_lsq_value_and_grad_batched(
+    got_sums, got_gsums = lsq_value_and_grad_batched(
         pvecs, *comp, trm, tgm, tbm, interpret=True)
 
     want_sums, want_gsums = jax.vmap(
         lambda pv, a, b, c: soa.ggx_lsq_fwdbwd_soa(pv, *comp, a, b, c))(
             pvecs, trm, tgm, tbm)
-    np.testing.assert_allclose(np.asarray(got_loss),
-                               np.asarray(want_sums) / n, rtol=1e-4)
-    np.testing.assert_allclose(np.asarray(got_grad),
+    np.testing.assert_allclose(np.asarray(got_sums) / n,
+                               np.asarray(want_sums) / n, rtol=1e-5)
+    np.testing.assert_allclose(np.asarray(got_gsums) / n,
                                np.asarray(want_gsums) / n,
                                rtol=3e-4, atol=1e-6)
 
-    # mean_over_materials divides grads (not losses) by M
-    got_loss2, got_grad2 = ggx_lsq_value_and_grad_batched(
-        pvecs, *comp, trm, tgm, tbm, interpret=True,
-        mean_over_materials=True)
-    np.testing.assert_allclose(np.asarray(got_loss2), np.asarray(got_loss),
-                               rtol=1e-6)
-    np.testing.assert_allclose(np.asarray(got_grad2),
-                               np.asarray(got_grad) / m, rtol=1e-6)
-
 
 def test_fit_lsq_fused_matches_layered(rng):
-    """fit_lsq's fused dispatch (the product path, VERDICT r2 #1)
-    converges to the same parameters as the layered autodiff path."""
+    """fit_lsq's fused dispatch (the product path) converges to the
+    same parameters as the layered autodiff path."""
     from dj_brdf_tpu.core.math import from_spherical
     from dj_brdf_tpu.fit import lsq
 
@@ -408,13 +405,19 @@ def test_fit_lsq_sharded_matches_unsharded(rng):
                                atol=1e-3)
 
 
-def test_make_fused_value_and_grad_pallas_interpret(rng):
-    """fit.lsq.make_fused_value_and_grad's Pallas branch (what an
-    unsharded TPU fit runs), in interpret mode, == the XLA-adjoint
-    branch, at an odd sample count (exercises padding + n_valid)."""
-    from dj_brdf_tpu.fit import lsq
+def test_make_fused_value_and_grad_pallas_interpret(rng, monkeypatch):
+    """fit.lsq.make_fused_value_and_grad's kernel route (what an
+    unsharded GPU fit runs), in interpret mode, == the XLA-adjoint
+    route, at an odd sample count (exercises the masked tail)."""
+    import functools
 
-    n = 5000  # not a multiple of 128*256
+    from dj_brdf_tpu.fit import lsq
+    from dj_brdf_tpu.ops import fused_fit
+
+    monkeypatch.setattr(fused_fit, "lsq_value_and_grad_batched",
+                        functools.partial(lsq_value_and_grad_batched,
+                                          interpret=True))
+    n = 5000  # not a multiple of the 256-sample block
     i, o = make_batch(rng, n)
     target = mf.evalp(
         GGX(), fresnel.Schlick(f0=jnp.asarray([0.9, 0.6, 0.3], jnp.float32)),
@@ -422,10 +425,9 @@ def test_make_fused_value_and_grad_pallas_interpret(rng):
     raw = lsq.raw_init()
 
     vg_p, data_p = lsq.make_fused_value_and_grad(i, o, target,
-                                                 use_pallas=False,
-                                                 interpret=True)
+                                                 route="kernel")
     vg_x, data_x = lsq.make_fused_value_and_grad(i, o, target,
-                                                 use_pallas=False)
+                                                 route="xla")
     val_p, g_p = vg_p(raw, *data_p)
     val_x, g_x = vg_x(raw, *data_x)
     np.testing.assert_allclose(float(val_p), float(val_x), rtol=1e-4)
@@ -438,7 +440,7 @@ def test_make_fused_value_and_grad_pallas_interpret(rng):
 def test_beckmann_hand_adjoint_matches_autodiff(rng):
     """soa.beckmann_lsq_fwdbwd_soa == jax.grad of the Beckmann loss at
     randomized parameter sets (the fuzz-seed style sweep), including
-    gated/degenerate samples (VERDICT r4 #5)."""
+    gated/degenerate samples."""
     from dj_brdf_tpu.microfacet.ndf import Beckmann
 
     n = 8192
@@ -481,7 +483,7 @@ def test_beckmann_hand_adjoint_matches_autodiff(rng):
 def test_beckmann_fused_kernel_matches_autodiff(rng):
     """The Pallas kernel with family="beck" (interpret mode) == XLA
     autodiff of the Beckmann loss."""
-    n = 128 * 256
+    n = 128 * 256 + 5
     i, o = make_batch(rng, n)
     comp = soa.split_dirs(i, o)
     pvec_true = jnp.asarray([0.3, 0.2, 0.2, 0.0, 0.0, 0.9, 0.6, 0.3],
@@ -491,8 +493,8 @@ def test_beckmann_fused_kernel_matches_autodiff(rng):
                        jnp.float32)
     want_val, want_grad = jax.value_and_grad(soa.beckmann_lsq_loss_soa)(
         pvec, *comp, tr, tg, tb)
-    got_val, got_grad = ggx_lsq_value_and_grad(
-        pvec, *comp, tr, tg, tb, interpret=True, family="beck")
+    got_val, got_grad = kernel_value_and_grad(pvec, *comp, tr, tg, tb,
+                                              family="beck")
     np.testing.assert_allclose(float(got_val), float(want_val), rtol=1e-4)
     np.testing.assert_allclose(np.asarray(got_grad),
                                np.asarray(want_grad),
@@ -577,3 +579,104 @@ def test_normal_incidence_sampling_not_collapsed(rng):
     i_l = mf.sample(Beckmann(), MicrofacetParams.isotropic(0.5), u1, u2,
                     o3)
     assert float(np.abs(np.asarray(i_l)[:, :2]).max()) > 0.05
+
+
+@pytest.mark.parametrize("family", ["ggx", "beck"])
+@pytest.mark.parametrize("n", [1, 1000, 4097])
+def test_xla_adjoint_matches_autodiff_odd_sizes(rng, family, n):
+    """The plain-XLA hand adjoint (the route of sharded and non-GPU
+    fits) == autodiff of the loss for both families at odd sizes."""
+    fwdbwd = {"ggx": soa.ggx_lsq_fwdbwd_soa,
+              "beck": soa.beckmann_lsq_fwdbwd_soa}[family]
+    loss = {"ggx": soa.ggx_lsq_loss_soa,
+            "beck": soa.beckmann_lsq_loss_soa}[family]
+    evalp = {"ggx": soa.ggx_evalp_soa, "beck": soa.beckmann_evalp_soa}[family]
+    i, o = make_batch(rng, n)
+    comp = soa.split_dirs(i, o)
+    tgt = evalp(jnp.asarray([0.3, 0.2, 0.2, 0.0, 0.0, 0.9, 0.6, 0.3],
+                            jnp.float32), *comp)
+    pvec = jnp.asarray([0.4, 0.3, 0.1, 0.02, -0.03, 0.5, 0.5, 0.5],
+                       jnp.float32)
+    want_val, want_grad = jax.value_and_grad(loss)(pvec, *comp, *tgt)
+    s, g = fwdbwd(pvec, *comp, *tgt)
+    np.testing.assert_allclose(float(s) / n, float(want_val), rtol=2e-5)
+    np.testing.assert_allclose(np.asarray(g) / n, np.asarray(want_grad),
+                               rtol=3e-3, atol=2e-6)
+
+
+@pytest.mark.parametrize("family", ["ggx", "beck"])
+def test_vmapped_xla_adjoint_matches_batched_autodiff(rng, family):
+    """The batched plain-XLA adjoint (fit.batch's "xla" route: vmap
+    over materials, shared directions) == vmap of autodiff."""
+    from dj_brdf_tpu.fit import lsq
+    from dj_brdf_tpu.fit.batch import make_batched_value_and_grad
+    from dj_brdf_tpu.microfacet.ndf import Beckmann
+
+    dist = GGX() if family == "ggx" else Beckmann()
+    m, n = 3, 777
+    i, o = make_batch(rng, n)
+    targets = jnp.stack([mf.evalp(dist, fresnel.Schlick(
+        f0=jnp.asarray([0.9, 0.6, 0.3], jnp.float32)),
+        MicrofacetParams.isotropic(a), i, o) for a in (0.2, 0.35, 0.5)])
+    raw = jax.vmap(lambda _: lsq.raw_init())(jnp.arange(m))
+    got = {}
+    for route in ("xla", "autodiff"):
+        vg, data = make_batched_value_and_grad(targets, i, o, dist, route)
+        got[route] = vg(raw, *data)
+    np.testing.assert_allclose(np.asarray(got["xla"][0]),
+                               np.asarray(got["autodiff"][0]), rtol=2e-5)
+    for a, b in zip(jax.tree_util.tree_leaves(got["xla"][1]),
+                    jax.tree_util.tree_leaves(got["autodiff"][1])):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
+                                   rtol=3e-3, atol=2e-6)
+
+
+def test_batched_kernel_route_matches_xla_route(rng, monkeypatch):
+    """fit.batch's "kernel" route (interpret mode) == its "xla" route."""
+    import functools
+
+    from dj_brdf_tpu.fit import batch, lsq
+    from dj_brdf_tpu.ops import fused_fit
+
+    m, n = 2, 600
+    i, o = make_batch(rng, n)
+    targets = jnp.stack([mf.evalp(GGX(), fresnel.Schlick(
+        f0=jnp.asarray([0.9, 0.6, 0.3], jnp.float32)),
+        MicrofacetParams.isotropic(a), i, o) for a in (0.2, 0.5)])
+    raw = jax.vmap(lambda _: lsq.raw_init())(jnp.arange(m))
+    monkeypatch.setattr(fused_fit, "lsq_value_and_grad_batched",
+                        functools.partial(lsq_value_and_grad_batched,
+                                          interpret=True))
+    got = {}
+    for route in ("kernel", "xla"):
+        vg, data = batch.make_batched_value_and_grad(targets, i, o, GGX(),
+                                                     route)
+        got[route] = vg(raw, *data)
+    np.testing.assert_allclose(np.asarray(got["kernel"][0]),
+                               np.asarray(got["xla"][0]), rtol=1e-5)
+    for a, b in zip(jax.tree_util.tree_leaves(got["kernel"][1]),
+                    jax.tree_util.tree_leaves(got["xla"][1])):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
+                                   rtol=5e-4, atol=1e-7)
+
+
+@pytest.mark.parametrize("fused,sharded,platform,want", [
+    ("auto", False, "gpu", "kernel"),
+    ("auto", True, "gpu", "xla"),
+    ("auto", False, "cpu", "xla"),
+    ("never", False, "gpu", "autodiff"),
+])
+def test_adjoint_route(fused, sharded, platform, want):
+    """One routing rule: the kernel only on an unsharded GPU fit,
+    autodiff when asked for or when no hand adjoint exists."""
+    from dj_brdf_tpu.fit import lsq
+    from dj_brdf_tpu.microfacet.ndf import Beckmann, GGXSphericalCaps
+
+    for dist in (GGX(), Beckmann(), GGXSphericalCaps()):
+        assert lsq.adjoint_route(dist, fused=fused, sharded=sharded,
+                                 platform=platform) == want
+    assert lsq.adjoint_route(GGX(), shadow=False,
+                             platform=platform) == "autodiff"
+    assert lsq.adjoint_route(GGX()) == "xla"   # this test host: CPU
+    with pytest.raises(ValueError, match="fused must be"):
+        lsq.adjoint_route(GGX(), fused="always")

@@ -100,7 +100,7 @@ def test_aniso_fits(case):
 
 def test_midres_45x45_parity():
     """Production-scale sanity at an intermediate resolution the C++
-    oracle still finishes quickly (VERDICT: the 16x16 grid alone
+    oracle still finishes quickly (the 16x16 grid alone
     under-exercises the pipeline; the real workload is 90x90,
     dj_brdf.h:2525-2579). Full-table p22/sigma parity + moment fits at
     45x45."""

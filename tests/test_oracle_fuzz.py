@@ -87,7 +87,7 @@ def test_fuzz_sample_matches_oracle(case):
     assert p_close.mean() > 0.995, 1 - p_close.mean()
     # ...and the disagreeing lanes must CLUSTER at the known boundary
     # (u near 0/1 or warped theta_k near pi/2) — a scattered interior
-    # regression of the same magnitude fails here (VERDICT r3 #6)
+    # regression of the same magnitude fails here
     bad = ~(i_close.all(axis=-1) & p_close)
     if bad.any():
         interior_bad = bad & ~_boundary_lanes(
@@ -120,7 +120,7 @@ def _assert_dist_close(got, want, frac=0.9995, cap=5e-3):
                          ids=[f"{c[0]}-{k}" for k, c in enumerate(CASES)])
 def test_fuzz_fused_soa_kernels_match_layered(case):
     """The production SoA kernels (ops/soa.py) at every seeded
-    parameter set (VERDICT r3 #6): ggx_evalp_is_soa (both samplers) /
+    parameter set: ggx_evalp_is_soa (both samplers) /
     beckmann_evalp_is_soa against the layered mf.evalp_is (itself
     oracle-parity-covered above), the dual-family kernel against the
     per-lane select of the single-family kernels, and (GGX cases)

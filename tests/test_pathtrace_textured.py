@@ -1,5 +1,5 @@
 """Integrator-orthogonal materials: textured roughness and LEAN maps
-under the multi-bounce path tracer (VERDICT r4 #1). In the reference
+under the multi-bounce path tracer. In the reference
 every material fetches its textures per shading point inside whatever
 Mitsuba integrator runs (mitsuba/dj_brdf.cpp:353-357,
 dj_beckmannconductor.cpp:280-428); here the fused SoA bounce loop
@@ -51,7 +51,7 @@ def _sun_sky(h=16, w=32):
 
 def test_constant_texture_matches_uniform():
     """A constant-valued alpha texture reproduces the uniform-material
-    image (the VERDICT done-criterion): per-hit fetch + elliptic
+    image (the done-criterion): per-hit fetch + elliptic
     conversion equals the uniform pvec to f32 rounding."""
     a1, a2, ang = 0.35, 0.15, 0.6
     uni = MicrofacetMaterial(dist=GGX(), fres=F0,
@@ -148,7 +148,7 @@ def test_textured_roughness_varies_across_surface():
 def test_gradients_flow_to_texture_and_lean_leaves():
     """d(render)/d(alpha map) and d(render)/d(LEAN moment maps) are
     finite and nonzero — the inverse-rendering surface of the textured
-    path (VERDICT r4 #1 done-criterion)."""
+    path (the done-criterion)."""
     em = _sun_sky()
 
     def loss(amap, e3map):
@@ -175,7 +175,7 @@ def test_gradients_flow_to_texture_and_lean_leaves():
 
 
 def test_matpreview_composition():
-    """The full matpreview-grade scene from VERDICT r4 #1: textured-
+    """The full matpreview-grade scene: textured-
     alpha GGX sphere + LEAN-mapped Beckmann-conductor floor + envmap
     MIS lighting, one render call."""
     rng = np.random.default_rng(5)

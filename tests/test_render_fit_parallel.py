@@ -126,8 +126,7 @@ def test_device_f32_power_path_matches_host_f64():
     _device_power_table) is the branch every production-size build
     takes (n > HOST_F64_MAX_N); build the same 45x45 table through it
     and through the reference-style host-f64 path and require <=1e-4
-    relative agreement post-normalization (VERDICT r2 weak #4;
-    dj_brdf.h:2467-2480)."""
+    relative agreement post-normalization (dj_brdf.h:2467-2480)."""
     from dj_brdf_tpu.fit import tabular, tabular_aniso
 
     eval_fn = tabular.microfacet_eval_fn(
@@ -163,8 +162,8 @@ def test_device_power_table_finite_at_90x90():
 
 
 def test_mesh_builder_matches_unsharded():
-    """One-call multi-chip anisotropic extraction (VERDICT r2 missing
-    #1): build_tabular_anisotropic(mesh=...) == the unsharded builder,
+    """One-call multi-chip anisotropic extraction:
+    build_tabular_anisotropic(mesh=...) == the unsharded builder,
     including stage 2 tables and the extracted Fresnel. n = 7*15 = 105
     is deliberately not a multiple of 8 devices, exercising the
     sharded power iteration's column padding."""
@@ -238,7 +237,7 @@ def test_path_tracer_subpixel_jitter():
     """jitter=True anti-aliases: an edge pixel's jittered value lies
     within its unjittered 3x3 neighbourhood's range (it integrates the
     pixel footprint), while jitter=False stays the deterministic
-    shared-camera-ray path (VERDICT r3 #7; the per-sample bRec context
+    shared-camera-ray path (the per-sample bRec context
     of mitsuba/dj_brdf.cpp:342-439)."""
     from dj_brdf_tpu.render import materials, pathtrace
 
@@ -293,7 +292,7 @@ def test_path_tracer_sharded_matches_unsharded():
 
 
 def test_path_tracer_fused_dispatch_matches_generic(monkeypatch):
-    """The fused per-ray material dispatch (VERDICT r2 weak #3)
+    """The fused per-ray material dispatch
     renders the same image as the generic both-materials path, for
     both a mixed-family (GGX sphere + Beckmann floor) and a
     same-family (per-ray pvec select) scene."""
